@@ -17,15 +17,22 @@ import torch
 
 def params_from_reference(tree, device) -> dict:
     """A (nested) dict of numpy arrays -> the same dict of tensors on
-    ``device``, copied, dtypes kept (float32 params stay float32).
-    Tensors already in the tree are moved to ``device``."""
+    ``device``, copied, dtypes kept (float32 params stay float32, bfloat16
+    ones stay bfloat16 bit for bit).  Tensors already in the tree are moved
+    to ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_from_reference(v, device) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    return torch.tensor(np.asarray(tree), device=device)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.tensor cannot read: carry the
+        # 16-bit patterns across and reinterpret them
+        bits = torch.tensor(arr.view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
+    return torch.tensor(arr, device=device)
 
 
 def state_from_reference(snap: dict, device) -> dict:

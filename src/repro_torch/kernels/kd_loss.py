@@ -16,24 +16,18 @@ softmax nor any (N, V) temporary touches device memory.
 :func:`kd_loss` is the wrapper.  A tensor on the CPU takes
 :func:`kd_loss_plain`; a CUDA tensor launches the kernel or raises.  The
 kernel is compiled with ``nvcc`` at first use from the source in this
-package into ``kernels/build/`` (route: plain ``extern "C"`` launcher,
-loaded with ``ctypes``), keyed by a hash of the source and flags.
+package by :mod:`repro_torch.kernels._build`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).with_name("csrc") / "kd_loss.cu"
-BUILD_DIR = Path(__file__).with_name("build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "kd_loss.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made by kd_loss() on CUDA tensors (never by the plain path)
@@ -99,10 +93,10 @@ def kd_loss(student_logits, teacher_logits, labels, *, alpha=0.5,
     out = torch.empty((n_rows,), dtype=torch.float32, device=device)
     if n_rows == 0:
         return out
-    lib = _library()
+    launch = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kd_loss_launch(
+        err = launch(
             student_logits.data_ptr(), teacher_logits.data_ptr(),
             labels.data_ptr(), out.data_ptr(), n_rows, vocab,
             _DTYPES[student_logits.dtype], float(alpha),
@@ -114,55 +108,15 @@ def kd_loss(student_logits, teacher_logits, labels, *, alpha=0.5,
 
 
 # -- build and binding ---------------------------------------------------------
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                       "kd_loss kernel cannot be built")
-
-
-def _library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libkd_loss_{key}.so"
-
-
 def build() -> Path:
-    """Compile the kernel with nvcc unless this source is already built.
-
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``.
-    """
-    so = _library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    """Compile the kernel with nvcc unless this source is already built."""
+    return _build.build(SOURCE)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.kd_loss_launch
-        # pointers and the stream as c_void_p: a plain int would be cut to
-        # 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        _lib = _build.load(SOURCE, "kd_loss_launch", [ctypes.c_void_p] * 4 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+            ctypes.c_float, ctypes.c_void_p])
     return _lib

@@ -1,12 +1,16 @@
-"""The call site the loss code uses for the kernels.
+"""The call sites the port's model and loss code use for the kernels.
 
-``kd_loss`` goes to :func:`repro_torch.kernels.kd_loss.kd_loss`, which
-launches the CUDA kernel for CUDA tensors and takes the plain PyTorch
-version for tensors on the CPU.
+Each forwards to the kernel's wrapper, which launches the CUDA kernel for
+CUDA tensors and takes the plain PyTorch version for tensors on the CPU.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def kd_loss(student_logits, teacher_logits, labels, *, alpha=0.5,

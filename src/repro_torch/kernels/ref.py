@@ -1,7 +1,42 @@
 """PyTorch oracles for the kernels (ground truth in tests)."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
+
+
+def attention_mask(S, causal, window, device):
+    """(S, S) bool: key ``j`` is visible to query ``i``."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (j <= i)
+    if window is not None:
+        mask = mask & (i - j < window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """q: (B,H,S,hd), k/v: (B,KV,S,hd) -> (B,H,S,hd). GQA by head broadcast.
+
+    Dense softmax over the masked scores: a row with no visible key gets
+    uniform weights here (the kernels write zeros); with a causal mask and
+    ``window >= 1`` every row sees itself, so the two agree.
+    """
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    qg = q.reshape(B, KV, G, S, hd).float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * (1.0 / math.sqrt(hd))
+    mask = attention_mask(S, causal, window, q.device)
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
+    return out.reshape(B, H, S, hd).to(q.dtype)
 
 
 def kd_loss_ref(student_logits, teacher_logits, labels, *, alpha=0.5,

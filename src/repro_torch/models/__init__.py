@@ -1,1 +1,10 @@
-"""Small models over a leading party axis."""
+"""Models of the port: the small per-party models over a leading party axis
+(:mod:`.small`) and the LLM zoo's dense decoder (:mod:`.zoo`)."""
+from repro_torch.models.config import (
+    INPUT_SHAPES,
+    ModelConfig,
+    ShapeConfig,
+)
+from repro_torch.models.zoo import build_model
+
+__all__ = ["ModelConfig", "ShapeConfig", "INPUT_SHAPES", "build_model"]

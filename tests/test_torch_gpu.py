@@ -7,8 +7,12 @@ Skips without a CUDA device.  On a machine with one (and ``nvcc``):
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_reference
 from repro_torch.core import losses
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kd_loss as kd
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -59,3 +63,82 @@ def test_fused_grad_on_the_card_matches_the_host(cuda):
         losses.fused_distillation_loss(x, y, z).sum().backward()
         grads.append(x.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
+
+
+# -- flash_attention ------------------------------------------------------------
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(B, H, KV, S, hd, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (8, 12, 2, 32, 128, True, None),     # the serve path's prefill
+    (1, 12, 2, 4096, 128, True, None),   # a long prefill
+    (1, 12, 2, 4096, 128, True, 1024),   # sliding window
+    (2, 4, 4, 256, 128, False, None),    # non-causal
+    (2, 12, 2, 1000, 128, True, None),   # ragged S
+    (2, 8, 2, 200, 64, True, 48),        # head_dim 64
+    (2, 32, 32, 300, 80, True, None),    # head_dim 80 (Zamba2)
+    (1, 2, 1, 1, 64, True, None),        # one token
+    (1, 2, 1, 64, 64, True, 0),          # no visible key: zero rows
+])
+def test_flash_kernel_matches_plain(cuda, B, H, KV, S, hd, causal, window,
+                                    dtype):
+    q, k, v = _qkv(B, H, KV, S, hd, dtype, cuda, seed=S + hd)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out, ref, rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda)
+    before = fa.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*_qkv(1, 4, 2, 64, 96, torch.float32, cuda))
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    assert fa.launches == before
+
+
+def test_flash_launches_count_only_on_cuda(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda)
+    before = fa.launches
+    fa.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert fa.launches == before
+    fa.flash_attention(q, k, v)
+    assert fa.launches == before + 1
+
+
+def test_smoke_model_on_the_card_matches_the_host(cuda):
+    """Prefill (through the kernel) and decode, card vs host, f32."""
+    cfg = get_smoke_config("qwen2_1_5b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 20),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        p = params_from_reference(params, dev)  # moves a tree of tensors
+        before = fa.launches
+        logits, _, cache = model.prefill(p, {"tokens": toks.to(dev)},
+                                         cache_len=24)
+        assert fa.launches - before == (cfg.num_layers if dev != "cpu" else 0)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        dec, _ = model.decode(p, cache, {"token": nxt})
+        outs.append((logits.cpu(), dec.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

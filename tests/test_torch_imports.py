@@ -40,7 +40,9 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'repro_torch.runtime.exchange' in mods, mods\n"
+        "for m in ('repro_torch.runtime.exchange', 'repro_torch.launch.serve',\n"
+        "          'repro_torch.kernels.flash_attention'):\n"
+        "    assert m in mods, (m, mods)\n"
         "print(len(mods))\n"
     )
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -48,6 +50,34 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+# fused library attention and the compiler: the port's kernels are its own
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "torch.compile",
+                   "flash_attn")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_attention_or_compiler(path):
+    text = path.read_text()
+    assert not [name for name in LIBRARY_KERNELS if name in text], path
+
+
+def test_chip_smoke_times_sdpa_only_as_a_yardstick():
+    """SDPA appears in chip_smoke.py only inside its timing phase."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    owners = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for node in ast.walk(fn):
+                if isinstance(node, (ast.Name, ast.Attribute, ast.alias)):
+                    name = getattr(node, "id", None) or \
+                        getattr(node, "attr", None) or node.name
+                    if name == "scaled_dot_product_attention":
+                        owners.setdefault(fn.name, 0)
+                        owners[fn.name] += 1
+    assert set(owners) == {"fa_timing"}, owners
 
 
 @pytest.fixture
