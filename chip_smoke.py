@@ -9,7 +9,7 @@ Phases, each of which must pass:
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
    every kernel, all sources at once, timed, with ptxas's registers and
-   spills;
+   spills (and the scan's dynamic shared memory);
 2. ``kd_loss`` against its plain PyTorch version on the card, at the
    exchange path's largest shape and at large vocabularies, f32 and
    bf16, plus the gradient of the fused loss against plain autograd;
@@ -23,19 +23,38 @@ Phases, each of which must pass:
 6. ``flash_attention`` against its plain version at the serve path's
    shape, a 4096-token prefill, a 1024 window, non-causal, a ragged S
    and head_dim 64 and 80, f32 (tol 2e-5) and bf16 (tol 2e-2);
-7. the serve path: ``repro_torch.launch.serve.main`` serving Qwen2-1.5B
-   at full width and depth (16 requests x 32 new tokens, slots of 8),
-   counts reset just before and read just after; flash launches must be
-   slots x 28 and every logit finite; then the kernel against its plain
-   version on the q/k/v that run gave it;
-8. the serve path's last (warm) slot again, with its params and steps,
+7. the Qwen2 serve path: ``repro_torch.launch.serve.main`` serving
+   Qwen2-1.5B at full width and depth (16 requests x 32 new tokens,
+   slots of 8), counts reset just before and read just after; flash
+   launches must be slots x 28 and every logit finite; then the kernel
+   against its plain version on the q/k/v that run gave it;
+8. that serve run's last (warm) slot again, with its params and steps,
    under ``torch.profiler``: device kernel time of prefill and decode
    against that slot's walls, and the flash kernel's share;
-9. one set of params at full width and vocab, 2 layers, f32, served on
-   the card and on the host: identical greedy tokens, last-step logits
+9. one set of Qwen2 params at full width and vocab, 2 layers, f32, served
+   on the card and on the host: identical greedy tokens, last-step logits
    within 2e-4;
 10. ``flash_attention`` kernel, plain, bound and SDPA times, bf16 causal,
-    at the serve shape and at (1,12,4096,128).
+    at the serve shape and at (1,12,4096,128);
+11. ``ssd_scan`` against its plain version at the Zamba2 serve path's
+    shape, a 4096-token prefill (16 chunks), a ragged S, the smoke shape
+    and the shapes of tests/test_kernels.py, f32 (tol 1e-4) and bf16
+    (3e-2); the long prefill also against the sequential oracle, with
+    the share of ||y|| that the carried state gives;
+12. the Zamba2 serve path: ``serve.main`` serving Zamba2-2.7B at full
+    width and depth, as in 7; ``ssd_scan`` launches must be slots x 54
+    and flash launches slots x 9; then both kernels against their plain
+    versions on the inputs that run gave them;
+13. that run's warm slot under the profiler, with the scan's and the
+    flash kernel's shares of prefill;
+14. one full-width Mamba2 layer, f32, S 1024 (4 chunks), on the card and
+    on the host: output, final state and conv tail within 1e-4;
+15. one set of Zamba2 params at full width and vocab, 12 layers (2
+    super-blocks, so two KV caches of the shared block), f32, 8 requests
+    in one slot on the card and on the host: identical greedy tokens,
+    last-step logits within 2e-4;
+16. ``ssd_scan`` kernel, plain and bound times, f32, at the serve shape
+    and at the 4096-token prefill.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -332,13 +351,21 @@ FA_SHAPES = [
     (2, 8, 2, 1024, 64, True, None),
     (2, 32, 32, 512, 80, True, None),
 ]
-SERVE_ARGS = ["--arch", "qwen2_1_5b", "--requests", "16", "--max-batch", "8",
-              "--bucket", "32", "--max-new", "32"]
-# card vs host at full width and vocab, 2 layers in float32: float32
+# the serve path's arguments; every run serves 16 requests x 32 new tokens
+# in slots of 8 at bucket 32
+SERVE = {"requests": 16, "max_new": 32, "max_batch": 8, "bucket": 32}
+# card vs host at full width and vocab, reduced depth, in float32: float32
 # products without TF32 on both sides, so logits differ only by summation
-# order; 2e-4 is the reference's own float32 logit tolerance
+# order (and, in Zamba2, the scan kernel's against its plain version);
+# 2e-4 is the reference's own float32 logit tolerance
 # (tests/test_models.py:85)
 HOST_TOL = 2e-4
+
+
+def serve_argv(arch):
+    return ["--arch", arch, "--requests", str(SERVE["requests"]),
+            "--max-batch", str(SERVE["max_batch"]), "--bucket",
+            str(SERVE["bucket"]), "--max-new", str(SERVE["max_new"])]
 
 
 def fa_inputs(B, H, KV, S, hd, dtype, seed):
@@ -365,17 +392,20 @@ def fa_shape_label(B, H, KV, S, hd, causal, window):
             + (f" window {window}" if window is not None else ""))
 
 
-def serve_path(kernels):
-    """Qwen2-1.5B at full width on the card through serve.main; returns
-    the flash launches, the first prefill q/k/v it was given, and the last
-    slot's ``run_slot`` arguments and prefill / decode walls."""
+def serve_path(kernels, arch, per_slot):
+    """``arch`` at full width on the card through serve.main, every
+    kernel's count reset just before and read just after; ``per_slot``
+    maps a kernel module to the launches each slot must make.  Returns
+    the counts, the first inputs each counted kernel was given, and the
+    last slot's ``run_slot`` arguments and prefill / decode walls."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    fa = kernels[1]
-    cfg = get_config("qwen2_1_5b")
-    slots, calls, last = [], [], {}
-    run_slot, flash = serve.run_slot, fa.flash_attention
+    cfg = get_config(arch)
+    slots, last, first = [], {}, {}
+    run_slot = serve.run_slot
+    names = {mod: mod.__name__.rsplit(".", 1)[-1] for mod in kernels}
+    wrapped = {mod: getattr(mod, names[mod]) for mod in per_slot}
 
     def recording_slot(*args, **kw):
         out = run_slot(*args, **kw)
@@ -384,47 +414,56 @@ def serve_path(kernels):
         last["args"] = args
         return out
 
-    def recording_flash(q, k, v, **kw):
-        if not calls:
-            calls.append((q.clone(), k.clone(), v.clone(), kw))
-        return flash(q, k, v, **kw)
+    def recording(mod, fn):
+        def call(*args, **kw):
+            if mod not in first:
+                first[mod] = ([a.clone() for a in args], kw)
+            return fn(*args, **kw)
+        return call
 
-    serve.run_slot, fa.flash_attention = recording_slot, recording_flash
+    serve.run_slot = recording_slot
+    for mod, fn in wrapped.items():
+        setattr(mod, names[mod], recording(mod, fn))
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
         t0 = time.perf_counter()
-        rc = serve.main(SERVE_ARGS)
+        rc = serve.main(serve_argv(arch))
         torch.cuda.synchronize()
-        launches = fa.launches
-        counts = {m.__name__: m.launches for m in kernels}
+        counts = {m: m.launches for m in kernels}
     finally:
-        serve.run_slot, fa.flash_attention = run_slot, flash
+        serve.run_slot = run_slot
+        for mod, fn in wrapped.items():
+            setattr(mod, names[mod], fn)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    requests, max_new = 16, 32
     t_prefill = sum(sl[1] for sl in slots)
     t_decode = sum(sl[2] for sl in slots)
-    log(f"serve qwen2_1_5b ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+    tokens = SERVE["requests"] * SERVE["max_new"]
+    log(f"serve {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}): {len(slots)} slots, wall "
         f"{wall:.2f} s (params init included), prefill {t_prefill:.4f} s, "
-        f"decode {t_decode:.4f} s, {requests * max_new / t_decode:.1f} tok/s "
-        f"batch-aggregate, peak {peak / 2**30:.2f} GiB, launches {counts}; "
-        f"per slot prefill {[round(sl[1], 4) for sl in slots]} s, decode "
+        f"decode {t_decode:.4f} s, {tokens / t_decode:.1f} tok/s "
+        f"batch-aggregate, peak {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.3f} GB), launches "
+        f"{ {names[m]: n for m, n in counts.items()} }; per slot prefill "
+        f"{[round(sl[1], 4) for sl in slots]} s, decode "
         f"{[round(sl[2], 4) for sl in slots]} s")
     assert rc == 0, rc
     assert all(sl[0] for sl in slots), "non-finite logits"
-    assert launches == len(slots) * cfg.num_layers > 0, (launches, len(slots))
     assert len(slots) > 1, "no warm slot to break down"
-    return launches, calls[0], last["args"], slots[-1][1:]
+    for mod, n in per_slot.items():
+        assert counts[mod] == len(slots) * n > 0, (names[mod], counts[mod],
+                                                   len(slots), n)
+    return counts, first, last["args"], slots[-1][1:]
 
 
-def serve_breakdown(fa, slot_args, walls, profiled_steps=4):
+def serve_breakdown(kernels, slot_args, walls, shares, profiled_steps=4):
     """Where the serve path's last (warm) slot spent its time: its prefill
-    and decode walls from the serve run, and the device's kernel time, the
-    flash kernel's part and the top kernels from the same slot's prefill
-    and first decode steps, with its params, run again under the profiler.
-    """
+    and decode walls from the serve run, and the device's kernel time, each
+    named kernel's part (``shares``: label -> device kernel name) and the
+    top kernels from the same slot's prefill and first decode steps, with
+    its params, run again under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -435,7 +474,7 @@ def serve_breakdown(fa, slot_args, walls, profiled_steps=4):
     batch = len(prompts)
     tokens = serve.pad_batch(cfg, prompts, bucket, "cuda")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    launches = fa.launches
+    counts = {m: m.launches for m in kernels}
     with torch.inference_mode():
         with profile(activities=activities) as prof_prefill:
             logits, cache = prefill(params, tokens)
@@ -446,39 +485,51 @@ def serve_breakdown(fa, slot_args, walls, profiled_steps=4):
                 nxt, logits, cache = step(params, cache, {"token": tok})
                 tok = nxt[:, None]
             torch.cuda.synchronize()
-    fa.launches = launches  # profiling launches are not the main path's
+    for m, n in counts.items():  # profiling launches are not the main path's
+        m.launches = n
 
     def device_us(prof):
-        by_name = {}
+        by_name, n = {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + \
                     e.time_range.elapsed_us()
-        return by_name
+                n += 1
+        return by_name, n
 
-    pre, dec = device_us(prof_prefill), device_us(prof_decode)
+    (pre, n_pre), (dec, n_dec) = device_us(prof_prefill), \
+        device_us(prof_decode)
     pre_ms, dec_ms = sum(pre.values()) / 1e3, sum(dec.values()) / 1e3
-    flash_ms = sum(v for k, v in pre.items() if "flash_fwd" in k) / 1e3
     steps = max_new - 1
     dec_ms *= steps / profiled_steps  # device time of all the slot's steps
+    parts = []
+    for label, kernel in shares.items():
+        ms = sum(v for k, v in pre.items() if kernel in k) / 1e3
+        parts.append(f"{label} kernel {ms:.3f} ms "
+                     f"({ms / (t_prefill * 1e3):.1%} of the prefill wall, "
+                     f"{ms / pre_ms:.1%} of its device time)")
+        assert ms > 0, f"the profiler saw no {label} kernel"
+    top_pre = sorted(pre.items(), key=lambda kv: -kv[1])[:5]
     top = sorted(dec.items(), key=lambda kv: -kv[1])[:5]
-    log(f"serve breakdown, the last (warm) slot, {batch} x bucket {bucket}: "
-        f"prefill wall {t_prefill * 1e3:.3f} ms, device kernel time "
-        f"{pre_ms:.3f} ms ({pre_ms / (t_prefill * 1e3):.1%} of the wall), "
-        f"flash kernel {flash_ms:.3f} ms ({flash_ms / (t_prefill * 1e3):.1%} "
-        f"of the prefill wall, {flash_ms / pre_ms:.1%} of its device time)")
-    log(f"serve breakdown: decode wall {t_decode * 1e3 / steps:.3f} ms a "
-        f"step over {steps} steps, device kernel time "
-        f"{dec_ms / steps:.3f} ms a step ({dec_ms / (t_decode * 1e3):.1%} "
-        f"busy; {profiled_steps} steps profiled), top kernels by device "
-        f"time: "
+    log(f"serve breakdown {cfg.name}, the last (warm) slot, {batch} x bucket "
+        f"{bucket}: prefill wall {t_prefill * 1e3:.3f} ms, device kernel "
+        f"time {pre_ms:.3f} ms ({pre_ms / (t_prefill * 1e3):.1%} of the "
+        f"wall); " + "; ".join(parts) + "; top prefill kernels: "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top_pre))
+    log(f"serve breakdown {cfg.name}: decode wall "
+        f"{t_decode * 1e3 / steps:.3f} ms a step over {steps} steps, device "
+        f"kernel time {dec_ms / steps:.3f} ms a step "
+        f"({dec_ms / (t_decode * 1e3):.1%} busy; {profiled_steps} steps "
+        f"profiled, {n_dec / profiled_steps:.0f} device ops (kernels and "
+        f"copies) a step, "
+        f"{n_pre} in the prefill), top kernels by device time: "
         + "; ".join(f"{k[:60]} {v / 1e3 / profiled_steps:.3f} ms/step"
                     for k, v in top))
-    assert flash_ms > 0, "the profiler saw no flash_attention kernel"
 
 
-def serve_card_vs_host(n_requests=16, bucket=32, max_new=32, max_batch=8):
-    """One set of params, 2 layers at full width, on the card and host."""
+def serve_card_vs_host(arch, n_requests, **replace):
+    """One set of params, ``arch`` at full width cut by ``replace`` (depth,
+    float32), served on the card and on the host from one seed."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_reference
     from repro_torch.device import resolve_device
@@ -486,7 +537,8 @@ def serve_card_vs_host(n_requests=16, bucket=32, max_new=32, max_batch=8):
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.runtime.serving import SlotQueue
 
-    cfg = get_config("qwen2_1_5b").replace(num_layers=2, dtype="float32")
+    bucket, max_new = SERVE["bucket"], SERVE["max_new"]
+    cfg = get_config(arch).replace(**replace)
     prefill, model = make_prefill_step(cfg, cache_len=bucket + max_new)
     step, _ = make_serve_step(cfg)
     host_params = model.init(torch.Generator().manual_seed(0))
@@ -494,28 +546,204 @@ def serve_card_vs_host(n_requests=16, bucket=32, max_new=32, max_batch=8):
     runs = {}
     for device in (torch.device("cpu"), resolve_device("cuda")):
         params = params_from_reference(host_params, device)
-        queue = SlotQueue(buckets=(bucket,), max_batch=max_batch)
+        queue = SlotQueue(buckets=(bucket,), max_batch=SERVE["max_batch"])
         for i, p in enumerate(prompts):
-            queue.add("qwen2", len(p), i)
+            queue.add(arch, len(p), i)
         gen = np.zeros((n_requests, max_new), np.int32)
         logits = []
         with torch.inference_mode():
             while len(queue):
-                idxs = queue.drain("qwen2", bucket)
+                idxs = queue.drain(arch, bucket)
                 rows, lg, _, _ = serve.run_slot(
                     cfg, prefill, step, params, [prompts[i] for i in idxs],
                     bucket, max_new)
                 gen[np.asarray(idxs)] = rows
                 logits.append(lg.float().cpu())
         runs[device.type] = (gen, torch.cat(logits))
+        del params
     (gen_h, lg_h), (gen_c, lg_c) = runs["cpu"], runs["cuda"]
     same = (gen_h == gen_c).all(axis=1)
-    err = check_close("serve logits card vs host", lg_c, lg_h, HOST_TOL)
-    log(f"serve 2 layers full width f32, card vs host: {int(same.sum())}/"
-        f"{n_requests} requests with identical greedy tokens ({max_new} "
-        f"each), last-step logits max|diff| {err:.3e} (tol {HOST_TOL})")
+    err = check_close(f"serve {arch} logits card vs host", lg_c, lg_h,
+                      HOST_TOL)
+    log(f"serve {arch} {cfg.num_layers} layers full width {cfg.dtype}, card "
+        f"vs host: {int(same.sum())}/{n_requests} requests with identical "
+        f"greedy tokens ({max_new} each), last-step logits max|diff| "
+        f"{err:.3e} (tol {HOST_TOL})")
     assert same.all(), np.nonzero(~same)[0]
     return err
+
+
+# -- ssd_scan and the Zamba2 serve path -----------------------------------------
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+# dt of the multi-chunk shapes: Zamba2's own dt range, so the per-chunk
+# decay sum(dt |A|) is of order one at chunk 256 and the carried state
+# matters (dt ~ softplus(N(0,1)) ~ 0.7 would decay it to 0 in a chunk)
+DT_RANGE = (0.001, 0.01)
+# (B, S, H, P, N, chunk, dt range): the serve path's prefill, a long
+# prefill, a ragged S, the smoke config, tests/test_kernels.py:124-127
+SSD_SHAPES = [
+    (8, 32, 80, 64, 64, 32, None),
+    (1, 4096, 80, 64, 64, 256, DT_RANGE),
+    (1, 1000, 80, 64, 64, 256, DT_RANGE),
+    (2, 32, 16, 32, 16, 16, None),
+    (1, 64, 2, 16, 8, 16, None),
+    (2, 128, 4, 32, 16, 32, None),
+    (1, 32, 1, 8, 4, 32, None),
+]
+ZAMBA2 = "zamba2_2_7b"
+# a full-width Mamba2 layer, card vs host, float32, S 1024 (4 chunks): the
+# kernel holds its plain version within 1e-4 in float32 and float32
+# products without TF32 differ from the host's by about 1e-6, so the scan's
+# tolerance bounds the layer's output, state and conv tail
+LAYER_TOL = 1e-4
+
+
+def ssd_inputs(B, S, H, P, N, dtype, seed, dt_range=None, device="cuda"):
+    """x, post-softplus dt (or uniform in ``dt_range``), negative A, B_, C_."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = randn(B, S, H, P).to(dtype)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(randn(B, S, H))
+    else:
+        lo, hi = dt_range
+        dt = lo + (hi - lo) * torch.rand((B, S, H), generator=g,
+                                         device=device)
+    A = -torch.exp(0.5 * randn(H))
+    return [x, dt, A, randn(B, S, N), randn(B, S, N)]
+
+
+def ssd_label(B, S, H, P, N, chunk):
+    return f"x ({B},{S},{H},{P}) N {N} chunk {chunk}"
+
+
+def ssd_check(ssd, args, chunk, label):
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    ry, rstate = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[args[0].dtype]
+    err = max(check_close(f"ssd_scan {label} y", y.float(), ry.float(), tol),
+              check_close(f"ssd_scan {label} state", state, rstate, tol))
+    log(f"ssd_scan {label} {str(args[0].dtype)[6:]}: max|kernel-plain| "
+        f"{err:.3e} (tol {tol}) over y and the final state")
+    return err
+
+
+def ssd_carry_check(ssd, ref, args, chunk, label):
+    """The kernel against the sequential oracle, and the share of ||y||
+    that the carried state gives: y minus each chunk scanned alone from a
+    zero state."""
+    B, S, H, P = args[0].shape
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    ry, rstate = ref.ssd_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = max(check_close(f"ssd_scan {label} y vs oracle", y.float(), ry,
+                          SSD_TOL[torch.float32]),
+              check_close(f"ssd_scan {label} state vs oracle", state, rstate,
+                          SSD_TOL[torch.float32]))
+    nc = S // chunk
+    x, dt, A, Bm, Cm = args
+    alone, _ = ssd.ssd_scan_plain(
+        x.reshape(B * nc, chunk, H, P), dt.reshape(B * nc, chunk, H), A,
+        Bm.reshape(B * nc, chunk, -1), Cm.reshape(B * nc, chunk, -1),
+        chunk=chunk)
+    share = float((ry - alone.reshape(ry.shape).float()).norm() / ry.norm())
+    log(f"ssd_scan {label}: max|kernel-sequential oracle| {err:.3e} (tol "
+        f"{SSD_TOL[torch.float32]}); the carried state gives {share:.1%} of "
+        f"||y|| ({nc} chunks)")
+    assert share > 0.05, f"the carried state barely matters ({share:.2%})"
+    return err
+
+
+def mamba2_layer_card_vs_host(ssd, S=1024, batch=1):
+    """One full-width Mamba2 layer of Zamba2-2.7B, float32, card vs host,
+    with dt_bias -6 so that dt ~ 0.001-0.01 and the state carries across
+    the 4 chunks."""
+    from repro_torch.common.types import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import ssm
+
+    cfg = get_config(ZAMBA2).replace(dtype="float32")
+    params = init_params(ssm.mamba2_spec(cfg), torch.Generator().manual_seed(1))
+    params["dt_bias"].fill_(-6.0)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((batch, S, cfg.d_model), generator=g)
+    outs = {}
+    launches = ssd.launches
+    for device in ("cpu", "cuda"):
+        with torch.inference_mode():
+            out, cache = ssm.mamba2_apply(params_from_reference(params, device),
+                                          cfg, x.to(device))
+        outs[device] = (out.cpu(), cache["state"].cpu(), cache["conv"].cpu())
+    assert ssd.launches == launches + 1
+    ssd.launches = launches  # a check, not the main path
+    errs = [check_close(f"mamba2 layer {name} card vs host", c, h, LAYER_TOL)
+            for name, c, h in zip(("out", "state", "conv tail"),
+                                  outs["cuda"], outs["cpu"])]
+    log(f"mamba2 layer d_model {cfg.d_model}, {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, S {S} ({S // cfg.ssm_chunk} "
+        f"chunks) f32, card vs host: max|diff| out {errs[0]:.3e}, state "
+        f"{errs[1]:.3e}, conv tail {errs[2]:.3e} (tol {LAYER_TOL})")
+    return max(errs)
+
+
+def ssd_work(B, S, H, P, N, chunk, elt):
+    """Bytes and flops the scan needs: x, dt, A, B_ and C_ read once, y and
+    the final state written once; per chunk of L rows, C B^T over the
+    causal half once per batch row (it does not depend on the head), and
+    per head the causal half of the decayed product with x, its mask and
+    decay (3 ops a pair), the carried state's term (after the first chunk)
+    and the state update."""
+    nbytes = (2 * B * S * H * P * elt + 4 * B * S * H + 4 * H
+              + 2 * 4 * B * S * N + 4 * B * H * P * N)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        pairs = L * (L + 1) // 2
+        flops += B * 2 * pairs * N
+        flops += B * H * (2 * pairs * P + 3 * pairs + 2 * L * P * N)
+        if c0:
+            flops += B * H * 2 * L * P * N
+    return nbytes, flops
+
+
+def ssd_timing(ssd, B, S, H, P, N, chunk, dt_range, dtype=torch.float32,
+               iters=20):
+    """Kernel and plain ms at one shape, with the bound: max(flops / the
+    float32 peak outside the tensor cores, bytes / HBM rate)."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes, flops = ssd_work(B, S, H, P, N, chunk, elt)
+    copies = max(1, min(16, -(-128 * 2**20 // nbytes)))
+    sets = [ssd_inputs(B, S, H, P, N, dtype, 300 + i, dt_range)
+            for i in range(copies)]
+    launches = ssd.launches
+    ms = time_ms(lambda *a: ssd.ssd_scan(*a, chunk=chunk), sets, iters)
+    ssd.launches = launches  # timing launches are not the main path's
+    plain_ms = time_ms(lambda *a: ssd.ssd_scan_plain(*a, chunk=chunk), sets,
+                       max(3, iters // 4))
+    ops_ms = flops / F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"ssd_scan timing {ssd_label(B, S, H, P, N, chunk)} "
+        f"{str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {flops} flops, {nbytes} B), "
+        f"kernel at {bound_ms / ms:.2%} of bound, {copies} input copies "
+        f"rotated")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [B, S, H, P, N, chunk]}
+
+
+def ssd_smem_bytes(chunk, P, N, tile=64, warps=8):
+    """The kernel's dynamic shared memory per block (smem_floats in
+    csrc/ssd_scan.cu): cum, dt, w, warp sums, state, C/B/x/G tiles."""
+    return 4 * (3 * chunk + warps + P * (N + 1) + 2 * tile * (N + 1)
+                + tile * P + tile * (tile + 1))
 
 
 # -- timing ----------------------------------------------------------------------
@@ -615,9 +843,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     try:
+        from repro_torch.configs import get_config
         from repro_torch.core import losses
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import kd_loss as kd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import ssd_scan as ssd
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -627,10 +858,13 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    kernels = (kd, fa)
+    kernels = (kd, fa, ssd)
 
     # 1. build every kernel, in parallel
     build_all(kernels)
+    log(f"ssd_scan dynamic shared memory per block: "
+        f"{ssd_smem_bytes(256, 64, 64)} B at chunk 256, P = N = 64; "
+        f"{ssd_smem_bytes(32, 64, 64)} B at the serve path's chunk 32")
 
     # 2. kd_loss vs plain at the listed shapes
     errs = [kd_check(kd, 4096 * 32, 8, torch.float32, 1)]
@@ -671,8 +905,12 @@ def main() -> int:
             fa_errs.append(fa_check(fa, q, k, v, causal, window, label))
             del q, k, v
 
-    # 7. the serve path at full width, then the kernel at its prefill shape
-    fa_launches, (q, k, v, kw), slot_args, walls = serve_path(kernels)
+    # 7. the Qwen2 serve path at full width, then the kernel at its prefill
+    # shape
+    counts, first, slot_args, walls = serve_path(
+        kernels, "qwen2_1_5b", {fa: get_config("qwen2_1_5b").num_layers})
+    fa_launches = counts[fa]
+    (q, k, v), kw = first[fa]
     B, H, S, hd = q.shape
     KV = k.shape[1]
     label = "serve-path " + fa_shape_label(B, H, KV, S, hd,
@@ -682,18 +920,70 @@ def main() -> int:
     rq, rk, rv = fa_inputs(B, H, KV, S, hd, q.dtype, 7)
     fa_errs.append(fa_check(fa, rq, rk, rv, kw["causal"], kw["window"],
                             label))
-    del q, k, v, rq, rk, rv
+    del q, k, v, rq, rk, rv, first
 
-    # 8. where the warm slot's time went, under the profiler
-    serve_breakdown(fa, slot_args, walls)
+    # 8. where the warm Qwen2 slot's time went, under the profiler
+    serve_breakdown(kernels, slot_args, walls, {"flash": "flash_fwd"})
     del slot_args
 
     # 9. one set of params on the card and on the host, 2 layers
-    serve_card_vs_host()
+    serve_card_vs_host("qwen2_1_5b", 16, num_layers=2, dtype="float32")
 
     # 10. flash_attention timings, bf16 causal
     fa_main = fa_timing(fa, B, H, KV, S, hd, iters=50)
     fa_long = fa_timing(fa, 1, 12, 2, 4096, 128, iters=10)
+
+    # 11. ssd_scan vs plain at the listed shapes, f32 and bf16; the long
+    # prefill also against the sequential oracle, with the carry's share
+    ssd_errs = []
+    for B, S, H, P, N, chunk, dt_range in SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(B, S, H, P, N, dtype, S + P, dt_range)
+            ssd_errs.append(ssd_check(ssd, args, chunk,
+                                      ssd_label(B, S, H, P, N, chunk)))
+            if S == 4096 and dtype == torch.float32:
+                ssd_errs.append(ssd_carry_check(
+                    ssd, ref, args, chunk, ssd_label(B, S, H, P, N, chunk)))
+            del args
+
+    # 12. the Zamba2 serve path at full width: ssd_scan in every Mamba2
+    # layer's prefill, flash in every application of the shared block
+    zcfg = get_config(ZAMBA2)
+    counts, first, slot_args, walls = serve_path(
+        kernels, ZAMBA2, {ssd: zcfg.num_layers,
+                          fa: zcfg.num_layers // zcfg.attn_every})
+    ssd_launches, zfa_launches = counts[ssd], counts[fa]
+    args, kw = first[ssd]
+    B, S, H, P = args[0].shape
+    label = "serve-path " + ssd_label(B, S, H, P, args[3].shape[-1],
+                                      kw["chunk"])
+    ssd_errs.append(ssd_check(ssd, args, kw["chunk"],
+                              label + " (its own x/dt/A/B/C)"))
+    (q, k, v), fkw = first[fa]
+    fa_errs.append(fa_check(fa, q, k, v, fkw["causal"], fkw["window"],
+                            "zamba2 serve-path " + fa_shape_label(
+                                *q.shape[:2], k.shape[1], *q.shape[2:],
+                                fkw["causal"], fkw["window"])
+                            + " (its own q/k/v)"))
+    del args, q, k, v, first
+
+    # 13. where the warm Zamba2 slot's time went
+    serve_breakdown(kernels, slot_args, walls,
+                    {"ssd_scan": "ssd_fwd", "flash": "flash_fwd"})
+    del slot_args
+
+    # 14. one full-width Mamba2 layer, card vs host, 4 chunks
+    layer_err = mamba2_layer_card_vs_host(ssd)
+
+    # 15. one set of params on the card and on the host, 12 layers (2
+    # super-blocks, so two KV caches of the shared block), one slot of 8
+    serve_card_vs_host(ZAMBA2, 8, num_layers=12, dtype="float32")
+
+    # 16. ssd_scan timings, f32, at the serve shape and a long prefill
+    ssd_main = ssd_timing(ssd, 8, 32, 80, 64, 64, 32, None, iters=50)
+    ssd_long = ssd_timing(ssd, 1, 4096, 80, 64, 64, 256, DT_RANGE, iters=10)
+    log("ssd_scan library_ms: no single PyTorch call computes this scan, so "
+        "there is no library yardstick")
     log(f"total wall: {time.perf_counter() - t_start:.1f} s on {card}")
 
     print(json.dumps({"kernels": [{
@@ -723,6 +1013,22 @@ def main() -> int:
         "library_ms": fa_main["library_ms"],
         "shape": fa_main["shape"],
         "long_prefill": fa_long,
+        "zamba2_launches": zfa_launches,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:89",
+        "launches": ssd_launches,
+        "max_abs_err": max(ssd_errs),
+        "ms": ssd_main["ms"],
+        "plain_ms": ssd_main["plain_ms"],
+        "bound_ms": ssd_main["bound_ms"],
+        "bound_by": ssd_main["bound_by"],
+        "library_ms": None,
+        "shape": ssd_main["shape"],
+        "long_prefill": ssd_long,
+        "mamba2_layer_card_vs_host_err": layer_err,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ import importlib
 
 ARCH_IDS = [
     "qwen2_1_5b",
+    "zamba2_2_7b",
 ]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}

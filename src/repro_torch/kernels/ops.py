@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
@@ -17,3 +18,7 @@ def kd_loss(student_logits, teacher_logits, labels, *, alpha=0.5,
             temperature=2.0):
     return _kd.kd_loss(student_logits, teacher_logits, labels, alpha=alpha,
                        temperature=temperature)
+
+
+def ssd_scan(x, dt, A, B_, C_, *, chunk):
+    return _ssd.ssd_scan(x, dt, A, B_, C_, chunk=chunk)

@@ -58,3 +58,23 @@ def kd_loss_ref(student_logits, teacher_logits, labels, *, alpha=0.5,
     log_pt = torch.log_softmax(tl / t, -1)
     kl = (log_pt.exp() * (log_pt - log_ps)).sum(-1)
     return alpha * ce + (1 - alpha) * (t * t) * kl
+
+
+def ssd_scan_ref(x, dt, A, B_, C_):
+    """Sequential SSD reference: x (B,S,H,P), dt (B,S,H), A (H,), B_/C_ (B,S,N).
+
+    Returns y (B,S,H,P) and the final state (B,H,P,N), both float32.  One
+    step per token in a Python loop: slow, but unambiguous ground truth
+    for the chunked plain version and the kernel.
+    """
+    x, dt, A, B_, C_ = (t.float() for t in (x, dt, A, B_, C_))
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A[None, :])  # (B,H)
+        state = state * decay[:, :, None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B_[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", C_[:, t], state))
+    return torch.stack(ys, dim=1), state

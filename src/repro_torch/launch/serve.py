@@ -4,14 +4,16 @@
 Requests arrive with different prompt lengths; batching goes through the
 port's copy of :class:`~repro_torch.runtime.serving.SlotQueue`.  Each
 drained slot is left-padded to its bucket, prefilled (attention through
-the flash-attention kernel on the card), then decoded greedily until
-max-tokens; rows land back at their original request index.
+the flash-attention kernel on the card, and Zamba2's Mamba2 layers
+through the SSD-scan kernel), then decoded greedily until max-tokens;
+rows land back at their original request index.
 
 On the card (the default; it raises without one):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_2_7b
 On the host, at the smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
-      --requests 6 --max-new 12
+      --arch zamba2_2_7b --requests 6 --max-new 12
 """
 from __future__ import annotations
 

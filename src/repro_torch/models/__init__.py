@@ -1,5 +1,5 @@
 """Models of the port: the small per-party models over a leading party axis
-(:mod:`.small`) and the LLM zoo's dense decoder (:mod:`.zoo`)."""
+(:mod:`.small`) and the LLM zoo's dense and hybrid decoders (:mod:`.zoo`)."""
 from repro_torch.models.config import (
     INPUT_SHAPES,
     ModelConfig,

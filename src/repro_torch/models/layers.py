@@ -35,6 +35,14 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (y * params["scale"].float()).to(dtype)
 
 
+def silu(x):
+    """``x * sigmoid(x)`` with ``sigmoid(x) = 1 / (1 + exp(-x))``, one op
+    at a time in ``x``'s dtype: ``jax.nn.silu``'s order, so a bfloat16
+    model rounds where the reference rounds (``F.silu`` rounds once and
+    flips about a third of bf16 results by an ulp)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

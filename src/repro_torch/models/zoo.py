@@ -6,6 +6,6 @@ from repro_torch.models.transformer import Model, build_decoder_model
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The dense decoder; every other family raises NotImplementedError
-    naming its ROADMAP item."""
+    """The dense and hybrid decoders; every other family raises
+    NotImplementedError naming its ROADMAP item."""
     return build_decoder_model(cfg)

@@ -12,6 +12,8 @@ from repro_torch.convert import params_from_reference
 from repro_torch.core import losses
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kd_loss as kd
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.gpu
@@ -140,5 +142,119 @@ def test_smoke_model_on_the_card_matches_the_host(cuda):
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         dec, _ = model.decode(p, cache, {"token": nxt})
         outs.append((logits.cpu(), dec.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+# -- ssd_scan -------------------------------------------------------------------
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0, dt_range=None):
+    """x, post-softplus dt (or uniform in dt_range), negative A, B_, C_."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = randn(B, S, H, P).to(dtype)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(randn(B, S, H))
+    else:
+        lo, hi = dt_range
+        dt = lo + (hi - lo) * torch.rand((B, S, H), generator=g, device=device)
+    A = -torch.exp(0.5 * randn(H))
+    return x, dt, A, randn(B, S, N), randn(B, S, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dt_range", [
+    (8, 32, 80, 64, 64, 32, None),                # the serve path's prefill
+    (1, 4096, 80, 64, 64, 256, (0.001, 0.01)),    # a long prefill, 16 chunks
+    (1, 1000, 80, 64, 64, 256, (0.001, 0.01)),    # ragged S
+    (2, 32, 16, 32, 16, 16, None),                # the smoke config
+    (1, 64, 2, 16, 8, 16, None),                  # tests/test_kernels.py
+    (2, 128, 4, 32, 16, 32, None),
+    (1, 32, 1, 8, 4, 32, None),
+    (2, 300, 3, 128, 128, 100, (0.001, 0.01)),    # the widest P and N
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dt_range,
+                                  dtype):
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=S + P,
+                       dt_range=dt_range)
+    before = ssd.launches
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    assert ssd.launches == before + 1
+    ry, rstate = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert state.dtype == torch.float32 and state.shape == (B, H, P, N)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, rstate, rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_matches_the_sequential_oracle(cuda):
+    args = _ssd_inputs(1, 600, 4, 64, 64, torch.float32, cuda, seed=1,
+                       dt_range=(0.001, 0.01))
+    y, state = ssd.ssd_scan(*args, chunk=256)
+    ry, rstate = ref.ssd_scan_ref(*args)
+    torch.testing.assert_close(y, ry, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(state, rstate, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 16, 8, torch.float32, cuda)
+    before = ssd.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     Bm, Cm, chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd.ssd_scan(x.half(), dt, A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="match"):
+        ssd.ssd_scan(x, dt, A, Bm, Cm[:, :, :4], chunk=16)
+    with pytest.raises(ValueError, match="P and N"):
+        ssd.ssd_scan(*_ssd_inputs(1, 8, 1, 129, 8, torch.float32, cuda),
+                     chunk=8)
+    with pytest.raises(ValueError, match="at most"):
+        ssd.ssd_scan(*_ssd_inputs(1, 2048, 1, 8, 8, torch.float32, cuda),
+                     chunk=2048)
+    assert ssd.launches == before
+
+
+def test_ssd_launches_count_only_on_cuda(cuda):
+    args = _ssd_inputs(1, 64, 2, 16, 8, torch.float32, cuda)
+    before = ssd.launches
+    ssd.ssd_scan(*(t.cpu() for t in args), chunk=16)
+    assert ssd.launches == before
+    ssd.ssd_scan(*args, chunk=16)
+    assert ssd.launches == before + 1
+
+
+def test_zamba2_smoke_model_on_the_card_matches_the_host(cuda):
+    """Prefill (through both kernels) and 4 decode steps, card vs host."""
+    cfg = get_smoke_config("zamba2_2_7b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 32),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        p = params_from_reference(params, dev)  # moves a tree of tensors
+        counts = (ssd.launches, fa.launches)
+        logits, _, cache = model.prefill(p, {"tokens": toks.to(dev)},
+                                         cache_len=40)
+        on_card = dev != "cpu"
+        assert ssd.launches - counts[0] == cfg.num_layers * on_card
+        assert fa.launches - counts[1] == \
+            cfg.num_layers // cfg.attn_every * on_card
+        steps = [logits.cpu()]
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        for _ in range(4):
+            logits, cache = model.decode(p, cache, {"token": nxt})
+            steps.append(logits.cpu())
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        outs.append(steps)
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

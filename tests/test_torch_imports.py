@@ -52,6 +52,33 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_hybrid_slice_modules_import_with_jax_and_reference_blocked():
+    """The Zamba2 slice's modules run with JAX and the reference absent:
+    the kernel, the Mamba2 block, the config, and a smoke forward."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import ops, ssd_scan\n"
+        "from repro_torch.models import build_model, ssm\n"
+        "from repro_torch.configs import get_smoke_config, zamba2_2_7b\n"
+        "cfg = get_smoke_config('zamba2_2_7b').replace(dtype='float32')\n"
+        "model = build_model(cfg)\n"
+        "params = model.init(torch.Generator().manual_seed(0))\n"
+        "toks = torch.zeros((1, 8), dtype=torch.int32)\n"
+        "logits, _ = model.forward(params, {'tokens': toks})\n"
+        "assert logits.shape == (1, 8, cfg.vocab_size)\n"
+        "assert ssd_scan.launches == 0\n"
+        "print('ok')\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 # fused library attention and the compiler: the port's kernels are its own
 LIBRARY_KERNELS = ("scaled_dot_product_attention", "torch.compile",
                    "flash_attn")

@@ -279,12 +279,11 @@ def _spec_leaves(tree):
 def test_unported_families_and_archs_raise():
     base = dict(name="x", num_layers=2, d_model=64, num_heads=4,
                 num_kv_heads=2, d_ff=128, vocab_size=64)
-    for family, item in (("hybrid", "A8b"), ("ssm", "A8d"), ("vlm", "A8e"),
-                         ("audio", "A8e")):
+    for family, item in (("ssm", "A8d"), ("vlm", "A8e"), ("audio", "A8e")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(ModelConfig(family=family, **base))
     with pytest.raises(NotImplementedError, match="A8c"):
         build_model(ModelConfig(family="moe", num_experts=4,
                                 experts_per_token=2, **base))
     with pytest.raises(KeyError, match="A8"):
-        get_config("zamba2_2_7b")
+        get_config("xlstm_1_3b")
