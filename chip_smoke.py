@@ -9,7 +9,8 @@ Phases, each of which must pass:
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
    every kernel, all sources at once, timed, with ptxas's registers and
-   spills (and the scan's dynamic shared memory);
+   spills (and the scan's and every flash instance's dynamic shared
+   memory);
 2. ``kd_loss`` against its plain PyTorch version on the card, at the
    exchange path's largest shape and at large vocabularies, f32 and
    bf16, plus the gradient of the fused loss against plain autograd;
@@ -21,8 +22,10 @@ Phases, each of which must pass:
    state: identical event logs and cycle counts, losses within 1e-5;
 5. ``kd_loss`` kernel, plain-version and bound times;
 6. ``flash_attention`` against its plain version at the serve path's
-   shape, a 4096-token prefill, a 1024 window, non-causal, a ragged S
-   and head_dim 64 and 80, f32 (tol 2e-5) and bf16 (tol 2e-2);
+   shape, a 4096-token prefill, a 1024 window, non-causal, ragged S (1,
+   63, 65, 129, 1000, 4095), window 0 (every row zero), head_dim 64 and
+   80, and 16 query heads a KV head, f32 (tol 2e-5: the CUDA-core kernel)
+   and bf16 (tol 2e-2: the wgmma kernel);
 7. the Qwen2 serve path: ``repro_torch.launch.serve.main`` serving
    Qwen2-1.5B at full width and depth (16 requests x 32 new tokens,
    slots of 8), counts reset just before and read just after; flash
@@ -34,8 +37,10 @@ Phases, each of which must pass:
 9. one set of Qwen2 params at full width and vocab, 2 layers, f32, served
    on the card and on the host: identical greedy tokens, last-step logits
    within 2e-4;
-10. ``flash_attention`` kernel, plain, bound and SDPA times, bf16 causal,
-    at the serve shape and at (1,12,4096,128);
+10. ``flash_attention`` kernel, plain, bound and SDPA times, bf16, at the
+    Qwen2 and Zamba2 serve shapes and at (1,12,4096,128) causal and with
+    a 1024 window, in turns; kernel and SDPA also replayed from a CUDA
+    graph, which leaves out the host's time per call;
 11. ``ssd_scan`` against its plain version at the Zamba2 serve path's
     shape, a 4096-token prefill (16 chunks), a ragged S, the smoke shape
     and the shapes of tests/test_kernels.py, f32 (tol 1e-4) and bf16
@@ -54,7 +59,12 @@ Phases, each of which must pass:
     in one slot on the card and on the host: identical greedy tokens,
     last-step logits within 2e-4;
 16. ``ssd_scan`` kernel, plain and bound times, f32, at the serve shape
-    and at the 4096-token prefill.
+    and at the 4096-token prefill;
+17. a Qwen2 prefill at full width, 2 layers, bf16, one slot of 8 at
+    bucket 32, from one set of params, through the kernel and through its
+    plain version: last-position logits within 3e-2 (the bf16 kernel
+    rounds P to bf16 where the plain version keeps float32), and the
+    share of greedy tokens over 32 steps that agree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -341,16 +351,35 @@ def cuda_vs_cpu(n_parties=64, cycles=2):
 # -- flash_attention and the serve path ------------------------------------------
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 # (B, H, KV, S, hd, causal, window): the serve path's prefill, a long
-# prefill, a sliding window, non-causal, a ragged S, head_dim 64 and 80
+# prefill, a sliding window, non-causal, ragged S (one token, either side
+# of the 64-token packing limit, one past a 128-row tile, one short of a
+# long prefill), window 0, head_dim 64 and 80, 16 query heads a KV head
 FA_SHAPES = [
     (8, 12, 2, 32, 128, True, None),
     (1, 12, 2, 4096, 128, True, None),
     (1, 12, 2, 4096, 128, True, 1024),
     (1, 12, 2, 2048, 128, False, None),
     (2, 12, 2, 1000, 128, True, None),
+    (2, 12, 2, 1, 128, True, None),
+    (2, 12, 2, 63, 128, True, None),
+    (2, 12, 2, 65, 128, True, None),
+    (1, 12, 2, 129, 128, True, None),
+    (1, 12, 2, 4095, 128, True, None),
+    (2, 12, 2, 300, 128, True, 0),
     (2, 8, 2, 1024, 64, True, None),
+    (2, 32, 2, 512, 64, True, None),
+    (4, 32, 2, 32, 64, True, None),
     (2, 32, 32, 512, 80, True, None),
 ]
+# the four shapes phase 10 times, bf16: (B, H, KV, S, hd, window), causal
+FA_TIMED = {
+    "qwen2_serve": (8, 12, 2, 32, 128, None),
+    "zamba2_serve": (8, 32, 32, 32, 80, None),
+    "long_prefill": (1, 12, 2, 4096, 128, None),
+    "long_prefill_window": (1, 12, 2, 4096, 128, 1024),
+}
+# the reference's bfloat16 logit tolerance (tests/test_models.py:145)
+BF16_LOGIT_TOL = 3e-2
 # the serve path's arguments; every run serves 16 requests x 32 new tokens
 # in slots of 8 at bucket 32
 SERVE = {"requests": 16, "max_new": 32, "max_batch": 8, "bucket": 32}
@@ -784,37 +813,137 @@ def kd_timing(kd, n, v, dtype, iters=50):
     return ms, plain_ms, bound_ms, bound_by
 
 
-def fa_timing(fa, B, H, KV, S, hd, dtype=torch.bfloat16, iters=20):
-    """Kernel, plain and SDPA ms for causal attention at one shape, with
-    the bound: max(flops / bf16 tensor peak, bytes / HBM rate), where a
-    causal pass needs 2*B*H*S^2*hd flops (half of QK^T and PV) and moves
-    q, k and v in once and o out once."""
+def fa_visible_pairs(S, causal, window):
+    """(query, key) pairs the mask leaves visible: sum over rows i of
+    min(i + 1, window) for causal attention with a window."""
+    i = np.arange(S, dtype=np.int64)
+    hi = i + 1 if causal else np.full(S, S, np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def graph_ms(fn, arg_sets, iters):
+    """Mean ms per call of ``iters`` calls captured in one CUDA graph and
+    replayed: the device's time, without the host's work per call."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def fa_timing(fa, ref, B, H, KV, S, hd, window=None, dtype=torch.bfloat16,
+              iters=20):
+    """Kernel, plain and SDPA ms for causal attention at one shape, each
+    timed as eager calls (host work included) and kernel and SDPA also
+    from a CUDA graph, with the bound: max(flops / bf16 tensor peak,
+    bytes / HBM rate), where QK^T and PV need 4*B*H*hd flops per visible
+    (query, key) pair and q, k and v move in once and o out once."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     elt = torch.finfo(dtype).bits // 8
     nbytes = 2 * (B * H + B * KV) * S * hd * elt
     copies = max(1, min(32, -(-128 * 2**20 // nbytes)))
     sets = [fa_inputs(B, H, KV, S, hd, dtype, 200 + i) for i in range(copies)]
+    mask = None if window is None else \
+        ref.attention_mask(S, True, window, "cuda")
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, window=window)
+
+    def library(q, k, v):
+        if mask is None:
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
     launches = fa.launches
-    ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), sets, iters)
+    ms = time_ms(kernel, sets, iters)
+    lib_ms = time_ms(library, sets, iters)
+    graph_kernel_ms = graph_ms(kernel, sets, iters)
+    graph_lib_ms = graph_ms(library, sets, iters)
+    ms_2 = time_ms(kernel, sets, iters)  # in turns: kernel, sdpa, ..., kernel
     fa.launches = launches  # timing launches are not the main path's
-    plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(q, k, v),
-                       sets, max(5, iters // 4))
-    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                          enable_gqa=True), sets, iters)
-    flops = 2 * B * H * S * S * hd
+    plain_ms = time_ms(
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, window=window),
+        sets, max(5, iters // 4))
+    flops = 4 * B * H * hd * fa_visible_pairs(S, True, window)
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"flash_attention timing {fa_shape_label(B, H, KV, S, hd, True, None)}"
-        f" {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-        f"{flops} flops, {nbytes} B), kernel at {bound_ms / ms:.2%} of bound, "
+    log(f"flash_attention timing {fa_shape_label(B, H, KV, S, hd, True, window)}"
+        f" {str(dtype)[6:]}: kernel {ms:.4f} / {ms_2:.4f} ms (eager, first "
+        f"and last), {graph_kernel_ms:.4f} ms (graph); sdpa {lib_ms:.4f} ms "
+        f"(eager), {graph_lib_ms:.4f} ms (graph); plain {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {flops} flops, {nbytes} B); "
+        f"kernel at {bound_ms / graph_kernel_ms:.2%} of bound (graph), "
+        f"{graph_lib_ms / graph_kernel_ms:.2f}x sdpa's speed (graph); "
         f"{copies} input copies rotated")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": [B, H, KV, S, hd]}
+            "graph_ms": graph_kernel_ms, "library_graph_ms": graph_lib_ms,
+            "shape": [B, H, KV, S, hd], "window": window}
+
+
+def prefill_kernel_vs_plain(fa, arch="qwen2_1_5b", num_layers=2):
+    """``arch`` at full width cut to ``num_layers``, bf16, one slot of 8 at
+    bucket 32 on the card from one set of params: prefill and greedy decode
+    through the kernel, then again with ``ops.flash_attention`` (what the
+    attention layer calls) replaced by the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    bucket, max_new, batch = SERVE["bucket"], SERVE["max_new"], \
+        SERVE["max_batch"]
+    cfg = get_config(arch).replace(num_layers=num_layers)
+    prefill, model = make_prefill_step(cfg, cache_len=bucket + max_new)
+    step, _ = make_serve_step(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve.make_requests(cfg, batch, seed=0)
+    tokens = serve.pad_batch(cfg, prompts, bucket, "cuda")
+    through_kernel = ops.flash_attention
+
+    def through_plain(q, k, v, *, causal=True, window=None):
+        return fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    runs, launches = {}, fa.launches
+    for name, fn in (("kernel", through_kernel), ("plain", through_plain)):
+        ops.flash_attention = fn
+        try:
+            with torch.inference_mode():
+                logits, _ = prefill(params, tokens)
+                gen, _, _, _ = serve.run_slot(cfg, prefill, step, params,
+                                              prompts, bucket, max_new)
+        finally:
+            ops.flash_attention = through_kernel
+        runs[name] = (logits[:, -1].float(), gen)
+    made = fa.launches - launches
+    fa.launches = launches  # a check, not the main path
+    assert made == 2 * num_layers, made  # two prefills through the kernel
+    (lg_k, gen_k), (lg_p, gen_p) = runs["kernel"], runs["plain"]
+    err = check_close(f"{arch} bf16 prefill logits kernel vs plain", lg_k,
+                      lg_p, BF16_LOGIT_TOL)
+    same = float((gen_k == gen_p).mean())
+    log(f"{arch} {num_layers} layers full width bf16, one slot of {batch} at "
+        f"bucket {bucket}, through the kernel vs the plain version: "
+        f"last-position logits max|diff| {err:.3e} (tol {BF16_LOGIT_TOL}); "
+        f"{same:.1%} of greedy tokens ({max_new} a request) agree, "
+        f"{int((gen_k == gen_p).all(axis=1).sum())}/{batch} requests "
+        "identical")
+    return err, same
 
 
 def build_all(kernels):
@@ -834,7 +963,7 @@ def build_all(kernels):
         if log_path.exists():
             for line in log_path.read_text().splitlines():
                 if "registers" in line or "spill" in line or \
-                        "Compiling entry" in line:
+                        "Compiling entry" in line or "warning" in line:
                     log(f"  ptxas: {line.strip()}")
 
 
@@ -865,6 +994,9 @@ def main() -> int:
     log(f"ssd_scan dynamic shared memory per block: "
         f"{ssd_smem_bytes(256, 64, 64)} B at chunk 256, P = N = 64; "
         f"{ssd_smem_bytes(32, 64, 64)} B at the serve path's chunk 32")
+    log("flash_attention dynamic shared memory per block: " + "; ".join(
+        f"head_dim {hd} bf16 {fa.smem_bytes(hd, torch.bfloat16)} B, f32 "
+        f"{fa.smem_bytes(hd, torch.float32)} B" for hd in fa.HEAD_DIMS))
 
     # 2. kd_loss vs plain at the listed shapes
     errs = [kd_check(kd, 4096 * 32, 8, torch.float32, 1)]
@@ -929,9 +1061,12 @@ def main() -> int:
     # 9. one set of params on the card and on the host, 2 layers
     serve_card_vs_host("qwen2_1_5b", 16, num_layers=2, dtype="float32")
 
-    # 10. flash_attention timings, bf16 causal
-    fa_main = fa_timing(fa, B, H, KV, S, hd, iters=50)
-    fa_long = fa_timing(fa, 1, 12, 2, 4096, 128, iters=10)
+    # 10. flash_attention timings, bf16 causal, the four shapes in turns
+    assert (B, H, KV, S, hd) == FA_TIMED["qwen2_serve"][:5]
+    fa_times = {name: fa_timing(fa, ref, *shape[:5], window=shape[5],
+                                iters=50 if shape[3] <= 64 else 10)
+                for name, shape in FA_TIMED.items()}
+    fa_main = fa_times["qwen2_serve"]
 
     # 11. ssd_scan vs plain at the listed shapes, f32 and bf16; the long
     # prefill also against the sequential oracle, with the carry's share
@@ -984,6 +1119,9 @@ def main() -> int:
     ssd_long = ssd_timing(ssd, 1, 4096, 80, 64, 64, 256, DT_RANGE, iters=10)
     log("ssd_scan library_ms: no single PyTorch call computes this scan, so "
         "there is no library yardstick")
+    # 17. a bf16 Qwen2 prefill through the kernel and through its plain
+    # version
+    e2e_err, e2e_same = prefill_kernel_vs_plain(fa)
     log(f"total wall: {time.perf_counter() - t_start:.1f} s on {card}")
 
     print(json.dumps({"kernels": [{
@@ -1012,8 +1150,15 @@ def main() -> int:
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"],
         "shape": fa_main["shape"],
-        "long_prefill": fa_long,
+        "design": "wgmma+tma bf16; CUDA-core f32",
+        "graph_ms": fa_main["graph_ms"],
+        "library_graph_ms": fa_main["library_graph_ms"],
+        "zamba2_serve": fa_times["zamba2_serve"],
+        "long_prefill": fa_times["long_prefill"],
+        "long_prefill_window": fa_times["long_prefill_window"],
         "zamba2_launches": zfa_launches,
+        "bf16_prefill_logits_kernel_vs_plain": e2e_err,
+        "bf16_greedy_tokens_agree": e2e_same,
     }, {
         "name": "ssd_scan",
         "route": "cuda",

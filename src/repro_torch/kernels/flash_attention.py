@@ -10,13 +10,16 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` (body
 ``_flash_kernel``).  Causal attention needs about ``2*B*H*S^2*hd`` flops
 against q, k and v read once and o written once, so long prefills are
-bound by arithmetic and the serve path's 32-token ones by bytes; this
-first version computes in float32 on the CUDA cores, one
-block per (64-row q tile, head, batch), Q/K/V/probability tiles in shared
-memory, online-softmax state in registers, and it skips KV tiles wholly
-outside the causal / window band.  Unlike the Pallas version it masks
-ragged S instead of asserting ``S % block == 0``.  It takes float32 and
-bfloat16 and head_dim 64, 80 and 128.
+bound by arithmetic and the serve path's 32-token ones by bytes.  bfloat16
+runs on the tensor cores: a warp-specialised block per 128 query rows, K/V
+tiles of 128 rows brought by TMA into a two-stage ring guarded by
+mbarriers, both products on ``wgmma`` with float32 accumulators and P
+rounded to bfloat16 as the second product's register operand, the heaviest
+causal tiles first, and at S <= 64 the query heads of a KV group packed
+into one tile.  float32 keeps a CUDA-core kernel for parity checks at
+2e-5.  Both skip KV tiles outside the causal / window band and, unlike the
+Pallas version, mask ragged S instead of asserting ``S % block == 0``.
+head_dim 64, 80 and 128.
 
 :func:`flash_attention` is the wrapper.  A tensor on the CPU takes
 :func:`flash_attention_plain`; a CUDA tensor launches the kernel or
@@ -59,16 +62,16 @@ def _check(q, k, v, window):
             f"flash_attention wants q (B,H,S,hd) and k, v (B,KV,S,hd), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, hd = q.shape
-    if k.shape[0] != B or k.shape[2:] != (S, hd):
+    Bk, KV, Sk, hdk = k.shape
+    if Bk != B or Sk != S or hdk != hd:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} in batch, length or head_dim")
-    if k.shape[1] == 0 or H % k.shape[1]:
-        raise ValueError(f"{H} query heads do not split over {k.shape[1]} "
-                         "KV heads")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not split over {KV} KV heads")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if len({q.device, k.device, v.device}) != 1:
+    if not q.device == k.device == v.device:
         raise ValueError("flash_attention inputs lie on several devices: "
                          f"{q.device}, {k.device}, {v.device}")
     if window is not None and window < 0:
@@ -79,11 +82,11 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     """q (B,H,S,hd), k/v (B,KV,S,hd) -> (B,H,S,hd) in q's dtype."""
     global launches
     _check(q, k, v, window)
-    device = q.device
-    if device.type == "cpu":
+    if q.is_cpu:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {device}")
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention needs a contiguous {name}")
@@ -91,15 +94,24 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel is built for head_dim "
                          f"{HEAD_DIMS}, not {hd}")
+    # at a 32-token prefill the host's work per call outlasts the kernel, so
+    # the device guard is entered only for tensors off the current device
+    # (tests/test_torch_gpu.py drives that branch on a second card), and
+    # the stream is read as a raw handle (a Stream object costs ~4 us).
+    # torch._C._cuda_getCurrentRawStream is private: it is the call that
+    # Inductor's generated code makes for the same handle (get_raw_stream),
+    # checked on torch 2.11.0+cu128
+    index = q.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return flash_attention(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    launch = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      B, H, k.shape[1], S, hd, _DTYPES[q.dtype], int(causal),
-                     -1 if window is None else int(window), stream)
+                     -1 if window is None else int(window),
+                     torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
@@ -120,3 +132,11 @@ def _library():
                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
     return _lib
+
+
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes, as the
+    source computes it (builds the kernel if needed)."""
+    fn = _build.load(SOURCE, "flash_attention_smem_bytes",
+                     [ctypes.c_int, ctypes.c_int])
+    return fn(head_dim, _DTYPES[dtype])

@@ -20,5 +20,5 @@ def kd_loss(student_logits, teacher_logits, labels, *, alpha=0.5,
                        temperature=temperature)
 
 
-def ssd_scan(x, dt, A, B_, C_, *, chunk):
+def ssd_scan(x, dt, A, B_, C_, *, chunk=128):
     return _ssd.ssd_scan(x, dt, A, B_, C_, chunk=chunk)

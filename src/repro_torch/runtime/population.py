@@ -100,10 +100,19 @@ class PartyPopulation:
         batch_size: int = 32,
         seed: int = 0,
         party_ids: Optional[List[str]] = None,
+        fused: bool = True,
+        mesh=None,
         device=None,
     ):
         assert x_train.shape[0] == y_train.shape[0]
+        if mesh is not None:
+            raise NotImplementedError(
+                "PartyPopulation(mesh=...) is not ported yet (ROADMAP A9: "
+                "the party axis on torch.distributed); pass mesh=None")
         self.device = resolve_device(device)
+        # the port has one eager path; ``fused`` is accepted for the
+        # reference's callers and selects nothing (both values give identical
+        # results), so it is not stored
         self.model = model
         self.task = task
         self.num_parties = int(x_train.shape[0])
@@ -163,6 +172,29 @@ class PartyPopulation:
                                               opt_state, params)
         return apply_updates(params, updates), opt_state, per_party.detach()
 
+    def distill_step(self, params, opt_state, bx, by, teacher_params, *,
+                     teacher_apply=None, teacher_axis: Optional[int] = 0,
+                     alpha: float = 0.5, temperature: float = 2.0):
+        """One KD update for a stack of parties (one kernel launch).
+
+        ``params``/``opt_state``/``bx``/``by`` carry a leading party axis;
+        ``teacher_params`` does too unless ``teacher_axis=None`` (one shared
+        teacher).  Returns ``(params, opt_state, per_party_loss)``, as the
+        reference's vmapped ``distill_step``.
+        """
+        if teacher_axis not in (0, None):
+            raise ValueError(f"teacher_axis must be 0 or None, got "
+                             f"{teacher_axis}")
+        t_apply = teacher_apply if teacher_apply is not None \
+            else self.model.apply
+        t_params = params_from_reference(teacher_params, self.device)
+        if teacher_axis is None:  # a party axis of 1 broadcasts the teacher
+            t_params = {k: v.unsqueeze(0) for k, v in t_params.items()}
+        bx = params_from_reference(bx, self.device)
+        by = params_from_reference(by, self.device).to(torch.int32)
+        return self._distill_step(params, opt_state, bx, by, t_params,
+                                  t_apply, alpha, temperature)
+
     def _distill_epochs(self, params, t_params, t_apply, x, y, blocks, alpha,
                         temperature):
         opt_state = self._opt.init(params, (x.shape[0],))
@@ -190,8 +222,14 @@ class PartyPopulation:
         return np.concatenate(blocks).astype(np.int32)
 
     # -- bulk operations -----------------------------------------------------
-    def train_epochs(self, epochs: int = 1) -> float:
-        """Run local SGD for every party; returns the mean final-step loss."""
+    def train_epochs(self, epochs: int = 1,
+                     fused: Optional[bool] = None) -> float:
+        """Run local SGD for every party; returns the mean final-step loss.
+
+        ``fused`` is accepted for the reference's callers: the port runs one
+        eager step per minibatch whatever it is, so both values give
+        identical results.
+        """
         blocks = self._epoch_blocks(epochs)
         params = self.state.params
         opt_state = self._opt.init(params, (self.num_parties,))

@@ -102,6 +102,49 @@ def test_flash_kernel_matches_plain(cuda, B, H, KV, S, hd, causal, window,
                                atol=FA_TOL[dtype])
 
 
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_bf16_single_tile_matches_matmul_attention(cuda, hd):
+    """One 128-row tile over one 64-key tile, no mask: the wgmma operand
+    layouts (swizzle, descriptors, the transpose bit of V) against
+    attention built from torch.matmul in float32."""
+    q, k, v = _qkv(1, 4, 2, 64, hd, torch.bfloat16, cuda, seed=hd)
+    out = fa.flash_attention(q, k, v, causal=False)
+    kk = k.float().repeat_interleave(2, dim=1)
+    vv = v.float().repeat_interleave(2, dim=1)
+    scores = torch.matmul(q.float(), kk.transpose(-1, -2)) / hd ** 0.5
+    ref = torch.matmul(torch.softmax(scores, -1), vv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (1, 2, 2, 1, 128, True, None),      # one token, group 1
+    (2, 12, 2, 63, 128, True, None),    # S 63: heads of a group packed
+    (2, 12, 2, 65, 128, True, None),    # S 65: one tile a head, ragged
+    (1, 12, 2, 129, 128, True, None),   # S 129: two KV tiles, ragged
+    (2, 32, 2, 32, 64, True, None),     # group 16 packed: 4 q tiles
+    (1, 32, 2, 300, 64, True, None),    # group 16, one head a tile
+    (2, 4, 2, 200, 80, True, 0),        # window 0: every row zero
+    (2, 4, 4, 300, 80, True, 40),       # a window inside one tile
+    (2, 6, 2, 40, 128, True, 7),        # a window over packed heads
+    (2, 4, 1, 190, 64, False, None),    # non-causal, group 4
+    (1, 4, 2, 50, 80, False, 20),       # non-causal window, packed
+    (8, 32, 32, 32, 80, True, None),    # Zamba2 serve: KV = H
+])
+def test_flash_bf16_edges_match_plain(cuda, B, H, KV, S, hd, causal, window):
+    q, k, v = _qkv(B, H, KV, S, hd, torch.bfloat16, cuda, seed=7 * S + hd)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    if window == 0:
+        assert not out.any()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda)
     before = fa.launches
@@ -122,6 +165,25 @@ def test_flash_launches_count_only_on_cuda(cuda):
     assert fa.launches == before
     fa.flash_attention(q, k, v)
     assert fa.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_a_second_card(cuda, dtype):
+    """Tensors off the current device: the wrapper enters their device's
+    guard, launches there, and leaves the current device as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    q, k, v = _qkv(2, 12, 2, 200, 128, dtype, other, seed=5)
+    before = fa.launches
+    with torch.cuda.device(0):
+        out = fa.flash_attention(q, k, v)
+        assert torch.cuda.current_device() == 0
+    ref = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize(other)
+    assert out.device == other and fa.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
 
 
 def test_smoke_model_on_the_card_matches_the_host(cuda):
